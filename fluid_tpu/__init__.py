@@ -1,6 +1,7 @@
-"""fluid-tpu: a TPU-native MLS-MPM/APIC weakly-compressible fluid framework.
+"""fluid-tpu: an MLS-MPM/APIC weakly-compressible fluid framework in JAX,
+run on an NVIDIA GPU.
 
-Built from scratch in JAX/XLA/Pallas with capability parity to the Rust
+Built from scratch in JAX/XLA with capability parity to the Rust
 reference GossiperLoturot/fluid-rs (2D/3D dam-break, Tait EOS, viscosity,
 APIC transfer, interactive TUI).  See SURVEY.md for the structural analysis
 of the reference and the build plan.

@@ -1,4 +1,4 @@
-"""Static domain geometry — the TPU-native analog of ``set_rect``.
+"""Static domain geometry — the array analog of ``set_rect``.
 
 The reference (``2d_multi.rs:79-102`` / ``3d_multi.rs:79-102``) derives, from a
 world-space rectangle, an *active* chunk rect ``a_rect``, a *padded* chunk rect

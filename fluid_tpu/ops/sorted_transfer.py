@@ -1,14 +1,12 @@
 """Sorted cell-ordered transfer — the scale path (SURVEY.md §7.2 step 5).
 
-The dense backend's ``at[].add`` scatter makes XLA sort the update stream
-internally on every scatter (TPU has no atomics).  This backend does the sort
+The dense backend scatters every tap in particle order.  This backend sorts
 ONCE per substep — particles are ordered by flattened cell id — and then every
 P2G scatter becomes ``jax.ops.segment_sum`` with ``indices_are_sorted=True``:
 for a fixed stencil offset, target cell id = sorted base id + constant, which
-stays monotonic, so each of the 3^D per-offset segment-sums runs in the cheap
-pre-sorted regime.
+stays monotonic, so each of the 3^D per-offset segment-sums sees sorted ids.
 
-This is the TPU-native replacement for BOTH of the reference's spatial
+This is the array replacement for BOTH of the reference's spatial
 structures: the hash-map chunking (``particles_mul``, ``2d_multi.rs:52``) and
 the ``swap_mul`` migration buffers (``2d_multi.rs:327-358``) — "migration" is
 simply next substep's re-sort (SURVEY.md §5.7).

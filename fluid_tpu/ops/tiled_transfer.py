@@ -1,22 +1,18 @@
-"""Tiled transfer — the TPU-native hot path (no per-tap random access).
+"""Tiled transfer — P2G/G2P without per-tap random access.
 
-Measured on TPU v5e, every per-tap random-access formulation of P2G/G2P is
-hopeless at scale: scatter-add and gather both cost ~25ns PER ROW from HBM
-regardless of row width, i.e. seconds per substep at 1M particles x 27 taps
-(SURVEY.md §7.3 hard part 1).  This backend restructures the transfer so that
-per-substep random access is exactly: one key sort, one PACKED binned gather
-(wide rows amortize the per-row cost), and one packed un-bin — everything
-else is dense VPU/MXU tensor algebra:
+This backend restructures the transfer so that per-substep random access is
+exactly: one key sort, one PACKED binned gather (wide rows), and one packed
+un-bin — everything else is dense tensor algebra (batched contractions and
+elementwise work):
 
 1. **Bin**: argsort by tile id (tiles of T^D cells); per-tile start offsets
    via a boundary scatter-min + reverse cummin (no searchsorted); compact
    OCCUPIED tiles into a static ``active`` budget (dam-break fluid occupies
-   a small fraction of the padded domain — the active list is the TPU analog
+   a small fraction of the padded domain — the active list plays the role
    of the reference's sparse chunk map, ``particles_mul`` 2d_multi.rs:52);
    gather all particle fields in ONE [slots, 16]-row packed gather.
 2. **Profiles**: per-axis quadratic-B-spline weight profiles over the
-   expanded window (E = T+2) in [tile, E, cap] layout — ``cap`` minor, so the
-   128-lane VPU is full.
+   expanded window (E = T+2) in [tile, E, cap] layout (``cap`` minor).
 3. **Deposit (P2G)**: tap weight = prod_d p_d and the APIC/eq-16 tap values
    are AFFINE in the tap offset (o_d - 1):  m(v + C dpos_tap) =
    m(v - C dvec) + sum_d (o_d-1) m C[:,d], so every scatter becomes staged
@@ -208,7 +204,7 @@ def _deposit(profs: List[jnp.ndarray], ch: jnp.ndarray) -> jnp.ndarray:
     X = ch  # [A, C_flat, cap]; ascending d keeps trailing layout (C, E1, E2, ...)
     for d in range(1, len(profs)):
         X = (X[:, :, None, :] * profs[d][:, None, :, :]).reshape(A, -1, cap)
-    # contract cap on the MXU: [A, E, cap] x [A, F, cap] -> [A, E, F]
+    # contract cap: [A, E, cap] x [A, F, cap] -> [A, E, F]
     return lax.dot_general(
         profs[0], X, (((2,), (2,)), ((0,), (0,))), precision=lax.Precision.HIGHEST, preferred_element_type=jnp.float32
     )
@@ -242,7 +238,7 @@ def _cat_profiles(plain, moment):
 
     Group g uses the moment profile on axis g-1 and plain elsewhere;
     sum_g dot(P_g, X_g) == dot(concat_K(P_g), concat_K(X_g)) — one big
-    matmul instead of 1+D small ones (MXU K-utilization).
+    matmul instead of 1+D small ones.
     Returns list of D arrays [A, E, (1+D)*cap].
     """
     D = len(plain)
@@ -304,8 +300,8 @@ def substep(
 
     ``preserve_order=False`` returns particles in tile-sorted order instead
     of the caller's, skipping the inverse-permutation scatter — physically
-    identical (particle identity is just array values) and ~7%% faster in
-    frame loops that don't care about slot stability.
+    identical (particle identity is just array values) and cheaper in frame
+    loops that don't care about slot stability.
     """
     if spec is None:
         spec = default_spec(cfg, p.n)

@@ -1,11 +1,9 @@
 """Tile-block <-> dense-grid assembly, fully dense (no scatter/gather).
 
-The TPU has no fast random access: scatter and gather both run at ~10^8
-rows/s from HBM, which caps any per-tap formulation of P2G/G2P at seconds per
-substep for 1M x 27-tap workloads (measured — see SURVEY §7.3 hard part 1).
-The tiled backend therefore computes per-TILE expanded blocks (tile of T^D
-cells plus a 1-cell stencil halo on every side => E = T+2 per axis) and moves
-between blocks and the dense grid with *static strided reshapes only*:
+The tiled backend computes per-TILE expanded blocks (tile of T^D cells plus
+a 1-cell stencil halo on every side => E = T+2 per axis) and moves between
+blocks and the dense grid with *static strided reshapes only* — no scatter
+or gather:
 
 * ``assemble``: overlap-add all tile blocks into the dense grid.  For each
   axis and each local index e in [0, E), block values land at global
@@ -133,7 +131,7 @@ def halo_sum(blocks: jnp.ndarray, tshape: Tuple[int, ...], T: int) -> jnp.ndarra
     slice.  27 (3D) static slice-adds over [*tshape, E, ..., *chan]; edge
     tiles simply receive nothing from missing neighbors.
 
-    This is the TPU-block analog of the reference's p_rect halo (SURVEY.md
+    This is the tile-block analog of the reference's p_rect halo (SURVEY.md
     §5.7); out-of-grid cells are NOT cropped here — apply ``edge_mask`` after.
     """
     D = len(tshape)

@@ -1,6 +1,6 @@
 """Particle<->grid transfer — dense, fully-vectorized reference path.
 
-This module is the TPU-native re-design of the reference's four pipeline
+This module is the vectorized re-design of the reference's four pipeline
 phases (``2d_multi.rs:148-359`` / ``3d_multi.rs:148-381``):
 
   p2g_1        scatter mass + APIC momentum        (2d_multi.rs:148-180)
@@ -8,18 +8,19 @@ phases (``2d_multi.rs:148-359`` / ``3d_multi.rs:148-381``):
   grid_update  normalize momentum + gravity        (2d_multi.rs:240-250)
   g2p          gather velocity/C, advect, BCs      (2d_multi.rs:252-359)
 
-Design notes (TPU-first, not a translation):
+Design notes (array-first, not a translation):
 
 * The reference's serial per-particle loops over hash-map chunks become
   whole-array ops over [N] SoA arrays; the 3^D stencil loop becomes a
   broadcast against a static [3^D, D] offset table.  XLA fuses the weight
   computation into the scatters/gathers — nothing here materializes more than
   [N, 3^D(, D)] intermediates.
-* Scatter-add (the classic TPU hard part — no atomics) uses
-  ``array.at[idx...].add``; XLA lowers this to a sorted scatter.  A faster
-  sorted+segment-sum path lives in ``sorted_transfer.py``, and Pallas kernels
-  in ``pallas_transfer.py``; all three are interchangeable and equivalence-
-  tested (SURVEY.md §4.4).
+* Scatter-add uses ``array.at[idx...].add``; on a GPU XLA lowers it to
+  atomic adds, so the summation order (and the last bits of a sum) can
+  change from run to run.  The sorted+segment-sum path
+  (``sorted_transfer.py``) and the per-tile contraction path
+  (``tiled_transfer.py``) are interchangeable and equivalence-tested
+  (SURVEY.md §4.4).
 * Bounds handling: the reference skips a stencil tap when any coordinate
   falls outside the padded grid (``2d_multi.rs:165-167`` etc.).  Here taps
   carry an explicit validity mask; invalid taps contribute zero and index a

@@ -1,18 +1,18 @@
-"""Multi-chip spatial domain decomposition (shard_map + ICI collectives).
+"""Multi-device spatial domain decomposition (shard_map + collectives).
 
 The reference's one "parallelism-shaped" structure is its chunked sparse
 domain: particles keyed by chunk, a 1-chunk halo (``p_rect`` vs ``a_rect``,
 ``2d_multi.rs:79-87``), and ``swap_mul`` migration buffers
 (``2d_multi.rs:327-358``) — an owner-computes + ghost-exchange pattern inside
-one process (SURVEY.md §2.4, §5.7).  This module is its TPU-native scaling
-equivalent:
+one process (SURVEY.md §2.4, §5.7).  This module is its multi-device
+scaling equivalent:
 
 * the dense grid is split into x-slabs across a 1-D ``"space"`` mesh axis,
   each device holding its slab plus a 1-cell halo on each side (the stencil
   radius — the analog of ``p_rect``'s chunk halo);
 * after local P2G scatters, halo contributions are **added** into their owning
   neighbor and completed edge cells are **copied** back into halos with
-  ``lax.ppermute`` (4 thin slice exchanges per substep, riding ICI);
+  ``lax.ppermute`` (4 thin slice exchanges per substep; NCCL on GPUs);
 * particles crossing a slab boundary migrate via fixed-capacity emigrant
   buffers ppermuted to the neighbor (the ``swap_mul`` analog), landing in
   free slots of the neighbor's fixed-capacity array.
@@ -433,7 +433,7 @@ def sharded_frame(
     substeps: int | None = None,
 ) -> LocalParticles:
     """Run one frame (``cfg.iterations`` substeps) under shard_map over the
-    "space" mesh axis — the multi-chip analog of ``step.frame``."""
+    "space" mesh axis — the multi-device analog of ``step.frame``."""
     n_sub = cfg.iterations if substeps is None else substeps
 
     def local_frame(lp, mouse_pos, mouse_active):

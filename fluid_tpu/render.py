@@ -5,7 +5,7 @@ Particles are binned into an 80x40 console grid (3D projects onto the xy
 plane, ``3d_multi.rs:473``) and bin counts map onto the ASCII ramp
 ``' .-=*%$#'`` at thresholds 1..7 (``2d_multi.rs:465-474``).
 
-TPU-native split: the histogram is computed **on device** inside a jitted
+Device/host split: the histogram is computed **on device** inside a jitted
 scatter (so an interactive frame transfers only 80x40 ints to the host, not
 N particle positions — SURVEY.md §7.3 hard part 5); the count->char mapping
 is host-side string work.

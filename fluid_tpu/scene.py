@@ -93,72 +93,3 @@ def reference_scene_3d(seed: int = 0, n: int = REFERENCE_N):
     cfg = default_3d()
     p, dom = dam_break(jax.random.key(seed), cfg, n)
     return cfg, p, dom
-
-
-# ---------------------------------------------------------------------------
-# Scene packing — batched scenes as ONE spatial domain (stream backend DP)
-# ---------------------------------------------------------------------------
-
-
-def pack_scenes(
-    state: ParticleState, cfg: Config, halo_cells: int = 4
-) -> Tuple[ParticleState, Domain, float]:
-    """Lay a [batch, N, ...] stack of scenes side by side along x in one
-    packed domain (disjoint grids; per-scene walls via the stream backend's
-    ``scene_stride``).
-
-    Data parallelism over scenes becomes plain extra-N for the spatial
-    backend: one stream, one kernel grid, no vmap — each scene keeps its own
-    boundary box (the collect kernel clips x within
-    ``[k*stride, k*stride + world]`` for scene k).  Scenes can never
-    interact: the per-scene grids are separated by ``2*halo_cells`` unused
-    cells and positions are clipped inside each scene's walls.
-
-    Returns (packed_particles [batch*N], packed_domain, stride).
-    """
-    import math
-
-    if state.pos.ndim != 3:
-        raise ValueError("pack_scenes expects a [batch, N, D] particle stack")
-    batch, n, D = state.pos.shape
-    lo, hi = cfg.boundary_clip
-    if any(abs(l) > 1e-6 for l in lo):
-        raise ValueError("pack_scenes assumes boundary_clip starting at 0")
-    world = hi[0]
-    stride = float(-(-int(math.ceil(world) + 2 * halo_cells) // 8) * 8)
-
-    offsets = jnp.arange(batch, dtype=jnp.float32) * stride  # [batch]
-    pos = state.pos.at[..., 0].add(offsets[:, None])
-    flat = lambda a: a.reshape((batch * n,) + a.shape[2:])
-    packed = ParticleState(
-        pos=flat(pos), vel=flat(state.vel), C=flat(state.C),
-        mass=flat(state.mass), density=flat(state.density),
-        pressure=flat(state.pressure),
-    )
-
-    origin = tuple([-halo_cells] * D)
-    shape_x = batch * int(stride)
-    shape = (shape_x,) + tuple(
-        -(-(int(math.ceil(hi[d])) + halo_cells + halo_cells) // 8) * 8
-        for d in range(1, D)
-    )
-    dom = Domain(
-        origin=origin, shape=shape,
-        a_rect=((0,) * D, (1,) * D), p_rect=((-1,) * D, (2,) * D),
-    )
-    return packed, dom, stride
-
-
-def unpack_scenes(
-    packed: ParticleState, batch: int, n: int, stride: float
-) -> ParticleState:
-    """Inverse of pack_scenes: restore [batch, N, ...] with per-scene x."""
-    unflat = lambda a: a.reshape((batch, n) + a.shape[1:])
-    pos = unflat(packed.pos)
-    offsets = jnp.arange(batch, dtype=jnp.float32) * stride
-    pos = pos.at[..., 0].add(-offsets[:, None])
-    return ParticleState(
-        pos=pos, vel=unflat(packed.vel), C=unflat(packed.C),
-        mass=unflat(packed.mass), density=unflat(packed.density),
-        pressure=unflat(packed.pressure),
-    )

@@ -2,9 +2,9 @@
 
 The reference stores AoS ``Particle`` structs in hash-map chunks
 (``2d_multi.rs:35-41,52``) and AoS ``Cell`` structs in a dense Vec
-(``2d_multi.rs:43-48,53``).  On TPU the idiomatic layout is structure-of-
-arrays with static shapes: contiguous ``[N, D]`` arrays vectorize onto the
-8×128 VPU lanes and keep XLA fusion trivial.
+(``2d_multi.rs:43-48,53``).  On an accelerator the idiomatic layout is
+structure-of-arrays with static shapes: contiguous ``[N, D]`` arrays keep
+memory access coalesced and XLA fusion trivial.
 
 ``density`` and ``pressure`` — intermediates inside the reference's ``p2g_2``
 (``2d_multi.rs:195-214``) — are first-class state here, per the north-star API

@@ -6,10 +6,11 @@ between.  Here the whole frame is ONE jitted XLA program: the five phases fuse
 into a single substep function and ``lax.fori_loop`` runs the substeps on
 device — zero host round-trips in the inner loop (SURVEY.md §7.3 hard part 5).
 
-Three interchangeable transfer backends share this driver:
+Three interchangeable transfer backends plug into this frame loop, all plain
+JAX/XLA:
   "dense"  — ops.transfer scatter/gather (correctness reference)
-  "sorted" — ops.sorted_transfer sort + segment-sum (scale path)
-  "pallas" — ops.pallas_transfer hand-written TPU kernels (hot path)
+  "sorted" — ops.sorted_transfer sort + segment-sum
+  "tiled"  — ops.tiled_transfer sort + per-tile contractions
 """
 
 from __future__ import annotations
@@ -37,14 +38,6 @@ def _get_backend(name: str):
         from .ops import tiled_transfer
 
         return tiled_transfer
-    if name == "pallas":
-        from .ops import pallas_transfer
-
-        return pallas_transfer
-    if name == "stream":
-        from .ops import stream_transfer
-
-        return stream_transfer
     raise ValueError(f"unknown transfer backend {name!r}")
 
 
@@ -86,16 +79,7 @@ def frame_body(
 ) -> ParticleState:
     """Unjitted frame body (``cfg.iterations`` substeps under fori_loop) —
     compose under your own jit/vmap/shard; or use ``frame`` for the default
-    jitted entry point.
-
-    Backends that expose a fused ``frame`` (the stream backend: bin once,
-    run every substep on the persistent binned layout with drift-triggered
-    re-bins, un-bin once) are dispatched to it; others loop ``substep``."""
-    ops = _get_backend(backend)
-    if hasattr(ops, "frame"):
-        return ops.frame(
-            p, cfg, domain, mouse_pos, mouse_active, substeps=substeps
-        )
+    jitted entry point."""
 
     def body(_, p):
         new_p, _ = substep(p, cfg, domain, mouse_pos, mouse_active, backend)

@@ -33,7 +33,7 @@ class PhaseTimer:
         self.domain = domain
         ops = _get_backend(backend)
         if not hasattr(ops, "p2g_1"):
-            # Fused backend (sorted/tiled/pallas): all phases run in one XLA
+            # Fused backend (sorted/tiled): all phases run in one XLA
             # program, so the honest granularity is the whole substep.  The
             # simulation ALWAYS runs the requested backend — timing must never
             # change what is being simulated.
@@ -83,63 +83,3 @@ class PhaseTimer:
             )
             times.append(("g2p", time.perf_counter() - t0))
         return p, times
-
-class StreamPhaseTimer:
-    """Stage-split timing for the PRODUCTION stream path (VERDICT r3 #7).
-
-    The reference shows five phase timings every frame while simulating at
-    full speed (``2d_multi.rs:479-487``); the fused stream frame has no
-    host-visible stage boundaries, so this probes each substep stage
-    (dep1 / halo(m) / dep2(m+f) / halo+gblk / collect, plus a re-bin) ON
-    the session's post-frame binned state and DISCARDS the outputs — the
-    simulation itself stays the fused ``Session`` path, so timing never
-    changes what is simulated.  Stage closures mirror
-    ``stream_transfer._substep_core`` (same kernels, same dynamic-grid
-    bounds).  The first frame's numbers include one-time stage compiles;
-    steady state from frame 2.
-    """
-
-    def __init__(self, cfg: Config, domain: Domain, spec, n: int):
-        import functools
-
-        from ..ops import stream_transfer as stx
-
-        self.cfg = cfg
-        tshape, origin, nt = stx._geom(domain, spec)
-        # the PRODUCTION stage closures (round 5: one definition site —
-        # _substep_core composes these same functions, so the overlay can
-        # never drift from what the fused frame actually runs)
-        stages = stx.substep_stages(cfg, domain, spec, fused=False)
-        self._dep1 = jax.jit(stages.dep1)
-        self._halo_m = jax.jit(stages.halo_m)
-        self._dep2 = jax.jit(stages.dep2)
-        self._halo_gblk = jax.jit(stages.halo_gblk)
-        self._collect = jax.jit(
-            lambda st, gblk, mp, ma: stages.collect(st, gblk, mp, ma)[0]
-        )
-        self._rebin = jax.jit(
-            functools.partial(
-                stx._rebin_full, cfg=cfg, domain=domain, spec=spec,
-                tshape=tshape, nt=nt, n=n,
-            )
-        )
-
-    @staticmethod
-    def _timed(times, label, fn, *args):
-        t0 = time.perf_counter()
-        out = jax.block_until_ready(fn(*args))
-        leaf = jax.tree_util.tree_leaves(out)[0]
-        float(leaf.ravel()[0])  # real fetch — surfaces device faults
-        times.append((label, time.perf_counter() - t0))
-        return out
-
-    def probe(self, st, mouse_pos, mouse_active) -> List[Tuple[str, float]]:
-        """One substep's stage times on ``st`` (state is NOT advanced)."""
-        times: List[Tuple[str, float]] = []
-        d1 = self._timed(times, "dep1", self._dep1, st)
-        hm = self._timed(times, "halo m", self._halo_m, st, d1)
-        d2 = self._timed(times, "dep2 m+f", self._dep2, st, d1, hm)
-        gb = self._timed(times, "halo+gblk", self._halo_gblk, st, d2, hm)
-        self._timed(times, "collect", self._collect, st, gb, mouse_pos, mouse_active)
-        self._timed(times, "rebin", self._rebin, st)
-        return times

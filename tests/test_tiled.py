@@ -33,7 +33,7 @@ def _small_case(dim, n, seed):
     return cfg, p, dom
 
 
-# 3D is slow-marked: the 3D interpret trace dominates this file; 2D plus
+# 3D is slow-marked: the 3D CPU compile dominates this file; 2D plus
 # the fused-frame dispatch test keep the tiled backend covered by default.
 @pytest.mark.parametrize(
     "dim", [2, pytest.param(3, marks=pytest.mark.slow)]
